@@ -61,9 +61,9 @@ def example_emmax():
 
 
 def example_precision_tiers():
-    """Opt-in fast scan tiers (TPU; runs fine on CPU too): the int8x3
-    digit-plane tier gives fp32-grade p-values (~1e-6 drift) from exact
-    int8 MXU matmuls; int8x2/bf16 trade more accuracy for speed. The
+    """Opt-in fast scan tiers (GPU; runs fine on CPU too): the int8x3
+    digit-plane tier gives fp32-grade p-values from exact int8 GEMMs;
+    int8x2/bf16 trade more accuracy for speed. The
     int8 tiers require fully-observed (integer) genotypes — on
     mean-imputed data they refuse rather than silently round."""
     from mixmogam_tpu.api import run_gwas
@@ -231,8 +231,7 @@ def example_resident_genome():
     """Round-3: the device-resident 2-bit genome. Pack the cohort once
     into (device) memory and run the whole study off it — repeated
     scans, kinship, stepwise — with zero per-scan host traffic. At the
-    1M x 10,240 flagship scale the packed genome is 2.7 GB (fits HBM
-    where int8/fp32 would not) and a full scan is ~2 s on a v5e."""
+    1M x 10,240 flagship scale the packed genome is 2.7 GB."""
     import numpy as np
 
     from mixmogam_tpu.data.parsers import parse_snp_data

@@ -1,14 +1,14 @@
-"""mixmogam_tpu — a TPU-native mixed-model GWAS engine.
+"""mixmogam_tpu — a mixed-model GWAS engine for accelerators.
 
-A from-scratch JAX/XLA/Pallas framework with the capability surface of
+A from-scratch JAX/XLA framework with the capability surface of
 ``bvilhjal/mixmogam`` (linear mixed-model GWAS: kinship construction, REML
 variance components, EMMAX / EMMA / stepwise-MLMM scans, results layer,
-multiple-testing correction, plotting), re-designed TPU-first:
+multiple-testing correction, plotting), re-designed for the device:
 
-- genotypes live as packed int8 tiles in HBM, sharded SNP-wise over a
-  ``jax.sharding.Mesh``;
-- kinship is a blocked matmul (Pallas kernel on TPU) accumulated with
-  ``psum`` across SNP shards;
+- genotypes live as packed int8 tiles in device memory, sharded SNP-wise
+  over a ``jax.sharding.Mesh``;
+- kinship is an integer-exact int8 gram accumulated with ``psum`` across
+  SNP shards;
 - the mixed-model core rotates data ONCE into the kinship eigenbasis, after
   which every per-SNP GLS F-test is elementwise + a tiny matmul — no Python
   loop over markers, HBM-bandwidth bound;

@@ -3,7 +3,7 @@ gluing parse -> coordinate -> kinship -> scan -> results/plots).
 
 The reference's names are kept (emmax, emma, emmax_step_wise,
 calc_ibs_kinship, ...) so a mixmogam user finds everything in one place;
-each delegates to the TPU-native models layer."""
+each delegates to the device models layer."""
 
 from __future__ import annotations
 
@@ -318,8 +318,7 @@ def run_gwas_multi(genotype_file: str, phenotype_file: str,
     (emmax_multi_trait): genotypes are coordinated once against the
     union of phenotyped samples, per-trait missing phenotypes become
     NaN rows (handled exactly by missingness-pattern grouping), and the
-    per-tile rotation is shared by all traits — at 50 traits this costs
-    ~the single-trait wall (measured, PERFORMANCE.md config #4)."""
+    per-tile rotation is shared by all traits."""
     phend = parse_phenotype_file(phenotype_file)
     # pids=[] means "no phenotypes", not "all" (an empty filter result
     # must not fan out a full GWAS per phenotype in the file)

@@ -60,14 +60,14 @@ def _add_run(sub):
                    choices=["exact", "auto", "fast", "int8x3", "high",
                             "bf16x2", "int8x2", "bf16"],
                    help="EMMAX scan tier: exact=true fp32 (default); "
-                        "auto=int8x3 on TPU for integer dosages, exact "
+                        "auto=int8x3 on a GPU for integer dosages, exact "
                         "otherwise (fastest tier within the fp32 "
                         "accuracy envelope); "
-                        "int8x3=exact-grade digit planes (int dosages); "
-                        "high=3-pass emulation (~2e-5 p-drift, ~1.2x); "
-                        "bf16x2=split-W 2-pass (~1e-5, ~1.3x); "
-                        "int8x2=digit planes (~1e-4, fast); "
-                        "bf16=1-pass (~6e-3 p-drift, ~1.6-2x); "
+                        "int8x3=fp32-grade digit planes (int dosages); "
+                        "high=reduced-precision f32 (TF32 on a GPU); "
+                        "bf16x2=split-W 2-pass; "
+                        "int8x2=digit planes (int dosages); "
+                        "bf16=1-pass; "
                         "fast=highest-throughput tier + automatic exact "
                         "rescore of the top 1024 hits")
     p.add_argument("--rescore-top", type=int, default=0,
@@ -76,16 +76,16 @@ def _add_run(sub):
                         "tier so reported hits carry exact-grade p-values")
     p.add_argument("--stream", default=None, choices=["auto", "on", "off"],
                    help="stream SNP tiles from host (default auto: "
-                        "streams when the device footprint exceeds "
-                        "~4 GiB; emmax only)")
+                        "streams when the device footprint exceeds a "
+                        "quarter of the device memory; emmax only)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="tile-granular resume directory for streamed "
                         "emmax scans")
     p.add_argument("--resident", default=None, choices=["auto", "on", "off"],
-                   help="hold the genome 2-bit packed in device HBM "
+                   help="hold the genome 2-bit packed in device memory "
                         "(default auto: promotes int8 genomes that "
-                        "exceed the in-core budget but fit ~6 GiB "
-                        "packed; emmax only)")
+                        "exceed the in-core budget but fit 3/8 of the "
+                        "device memory packed; emmax only)")
 
 
 def _add_kinship(sub):
@@ -122,6 +122,7 @@ def _add_simulate(sub):
     p.add_argument("-m", "--snps", type=int, default=10000)
     p.add_argument("--h2", type=float, default=0.5)
     p.add_argument("--n-causal", type=int, default=10)
+    p.add_argument("--ploidy", type=int, default=1, choices=[1, 2])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("-o", "--out-prefix", required=True)
 
@@ -129,7 +130,7 @@ def _add_simulate(sub):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="mixmogam-tpu",
-        description="TPU-native mixed-model GWAS (EMMA/EMMAX/MLMM)")
+        description="mixed-model GWAS on the GPU (EMMA/EMMAX/MLMM)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_run(sub)
     _add_kinship(sub)
@@ -253,7 +254,7 @@ def main(argv=None) -> int:
                                                 simulate_phenotype)
 
         G, ch, po = simulate_genotypes(args.samples, args.snps,
-                                       seed=args.seed)
+                                       ploidy=args.ploidy, seed=args.seed)
         gd = GenotypeData(G, ch, po,
                           [f"acc{i}" for i in range(args.samples)])
         y, causal = simulate_phenotype(G, h2=args.h2,

@@ -6,7 +6,7 @@ Users of the reference drive GWAS through two stateful classes
 `add_random_effect(K)`, then call `get_expedited_REMLE()` /
 `emmax_f_test(snps)` / etc.  This module provides those classes with the
 reference's method names so such code ports unchanged — each method is a
-thin stateful shell that delegates to the functional TPU core
+thin stateful shell that delegates to the functional device core
 (`ops.reml`, `ops.scan`, `models.*`); no compute happens here.
 
 State kept host-side per instance: phenotype y, fixed-effect columns X,

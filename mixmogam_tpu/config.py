@@ -3,7 +3,7 @@
 The reference (mixmogam) has no config system — everything is function kwargs
 with hardcoded defaults (SURVEY.md §5: ``ngrids=100, llim=-10, ulim=10,
 esp=1e-6``, ``min_mac=15``, SNP chunk sizes). We mirror those numeric
-defaults here so parity is preserved, and add the TPU-side knobs
+defaults here so parity is preserved, and add the device-side knobs
 (tile sizes, mesh axes, dtypes) the reference never needed.
 """
 
@@ -39,7 +39,6 @@ class TileConfig:
 
     kinship_snp_block: int = 2048   # SNPs per kinship accumulation block
     scan_snp_tile: int = 8192       # SNPs per EMMAX-scan tile
-    sample_block: int = 512         # sample-axis block for Pallas kernels
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +56,11 @@ class MeshConfig:
 class PrecisionConfig:
     """Numerics policy.
 
-    - compute_dtype: on-device linear algebra ('float32' on TPU;
+    - compute_dtype: on-device linear algebra ('float32' in production;
       tests run on CPU with x64 enabled and use 'float64').
     - rotate_in_bf16: opt-in fast path for the genotype-rotation matmul
-      (bf16 inputs, fp32 accumulation) — ~2x HBM and MXU win, costs ~1e-3
-      relative error on F stats; off by default to hold 1e-6 p-parity.
+      (bf16 inputs, fp32 accumulation; p-drift bound in
+      ops.scan.TIER_P_DRIFT); off by default to hold 1e-6 p-parity.
     - host_float64_pvalues: finalize p-values from F statistics in float64
       on host (scipy) so tails (p ~ 1e-30) survive fp32.
     """

@@ -1,6 +1,6 @@
 """Data layer: genotype/phenotype containers, parsers, simulation.
 
-TPU-first redesign of the reference's L1/L2 (snpsdata.py, phenotypeData.py,
+Device-first redesign of the reference's L1/L2 (snpsdata.py, phenotypeData.py,
 dataParsers.py, hdf5_data.py — SURVEY.md §2.1): genotypes live as a single
 packed int8 (M, n) matrix + metadata arrays (not per-chromosome Python
 lists), so device tiles slice straight out of it.

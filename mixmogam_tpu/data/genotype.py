@@ -1,4 +1,4 @@
-"""Genotype data model (TPU-first redesign of reference snpsdata.py).
+"""Genotype data model (device-first redesign of reference snpsdata.py).
 
 The reference keeps per-chromosome Python lists of per-SNP lists
 (SNPsDataSet / SnpsData — SURVEY.md §2.1). Here the genome is ONE packed

@@ -18,8 +18,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mixmogam_tpu.models.emmax import (STREAM_BUDGET_BYTES,
-                                       _as_design, _as_dosage)
+from mixmogam_tpu.models.emmax import (_as_design, _as_dosage,
+                                       default_stream_budget)
 from mixmogam_tpu.ops.eigen import eigen_k
 from mixmogam_tpu.ops.reml import fit_null_model
 from mixmogam_tpu.ops.stats import f_sf_host, chi2_sf_host
@@ -135,7 +135,7 @@ def emma(G, y, K=None, X0: Optional[np.ndarray] = None,
          eig_k: Optional[Tuple] = None, ngrids: int = 100,
          llim: float = -10.0, ulim: float = 10.0, esp: float = 1e-6,
          tile: int = 2048, dtype=None, test: str = "f",
-         stream_budget_bytes: int = STREAM_BUDGET_BYTES,
+         stream_budget_bytes: Optional[int] = None,
          mesh=None) -> Dict[str, np.ndarray]:
     """EMMA exact scan. Same signature family as emmax(); additionally
     returns per-SNP 'deltas' and 'pseudo_heritabilities'. Sources larger
@@ -160,6 +160,8 @@ def emma(G, y, K=None, X0: Optional[np.ndarray] = None,
     rg = G if isinstance(G, ResidentGenome) else None
     G_src = resolve_source(G)
     M = G_src.shape[0]
+    if stream_budget_bytes is None:
+        stream_budget_bytes = default_stream_budget()
     streamed = (False if rg is not None
                 else should_stream(G_src, n, dtype, stream_budget_bytes))
     if mesh is not None:
@@ -246,10 +248,8 @@ def emma(G, y, K=None, X0: Optional[np.ndarray] = None,
                           else Gt_raw.astype(dtype))
             elif streamed:
                 from mixmogam_tpu.models.source import fetch_tile
-                from mixmogam_tpu.ops.pack2 import default_pack_transfer
 
-                Gt_raw = fetch_tile(G_src, s, e, tile, n, dtype,
-                                    default_pack_transfer())
+                Gt_raw = fetch_tile(G_src, s, e, tile, n, dtype)
             else:
                 Gt_raw = Gd[s:e]
                 if e - s < tile:  # pad to the static tile shape

@@ -60,12 +60,20 @@ def _as_design(X0, n: int) -> np.ndarray:
     return X0
 
 
-#: device-footprint budget above which emmax() transparently streams
-#: (VERDICT r1 #6): the in-core path materializes G plus the rotated
-#: G @ W on device — at BASELINE config #3 (1M x 10k) that is 40+ GB,
-#: far past a v5e's 16 GB HBM. 4 GiB leaves room for the epilogue,
-#: donation double-buffers and the n^2 null-model matrices.
+#: in-core device footprint (G plus the rotated G @ W), as a fraction of
+#: the device memory limit, above which emmax() leaves the in-core path
+#: (VERDICT r1 #6; at BASELINE config #3, 1M x 10k, it is 40+ GB): the
+#: rest leaves room for the epilogue, donation double-buffers and the
+#: n^2 null-model matrices
+STREAM_FRACTION = 1 / 4
+#: the budget on a backend that reports no memory limit (the CPU)
 STREAM_BUDGET_BYTES = 4 << 30
+
+
+def default_stream_budget() -> int:
+    from mixmogam_tpu.models.source import device_budget
+
+    return device_budget(STREAM_FRACTION, STREAM_BUDGET_BYTES)
 
 
 def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
@@ -74,7 +82,7 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
           dtype=None, tile: int = 16_384, host_eigh: bool = True,
           rotate_in_bf16: bool = False, matmul_precision: str = None,
           precision: str = None, stream: Optional[bool] = None,
-          stream_budget_bytes: int = STREAM_BUDGET_BYTES,
+          stream_budget_bytes: Optional[int] = None,
           checkpoint_dir: Optional[str] = None,
           rescore_top: int = 0,
           resident: Optional[bool] = None,
@@ -90,21 +98,18 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
 
     Precision tiers for the SCAN phase (null fit always runs exact):
     default (None) = the package's pinned true-fp32 ('highest'); pass
-    matmul_precision='high' for ~1.3x faster 3-pass-bf16 fp32 (~2e-5
-    p-drift), rotate_in_bf16=True for the ~1.8x 1-pass tier (~6e-3
-    p-drift, leaders preserved), 'x2'/'x3' for split-W bf16 tiers, or
-    'int8x2'/'int8x3'/'int8x4' for int8 digit-plane tiers (integer
-    dosages only; 'int8x3' is fp32-grade at ~1.4e-6 p-drift and wins
-    1.4x over exact in the MXU-bound large-n regime) — measured
-    scripts/scan_tuning.py + int8_bench.py, v5e.
+    matmul_precision='high' for the reduced-precision f32 matmul (TF32
+    on a GPU), rotate_in_bf16=True for the 1-pass bf16 tier,
+    'x2'/'x3' for split-W bf16 tiers, or 'int8x2'/'int8x3'/'int8x4' for
+    int8 digit-plane tiers (integer dosages only). Each tier's measured
+    p-drift bound is ops.scan.TIER_P_DRIFT.
 
-    precision: unified tier name ('exact', 'auto', 'high', 'bf16',
-    'bf16x2', 'bf16x3', 'int8x2', 'int8x3', 'int8x4') that supersedes
-    the two legacy kwargs above. 'auto' routes integer-dosage datasets
-    on TPU to the fp32-grade int8x3 tier (measured faster than exact in
-    every TPU process, accuracy within the fp32 device envelope) and
-    everything else to exact. The resolved name is returned as
-    out['precision_tier'].
+    precision: unified tier name ('exact', 'auto', 'fast', 'high',
+    'bf16', 'bf16x2', 'bf16x3', 'int8x2', 'int8x3', 'int8x4') that
+    supersedes the two legacy kwargs above. 'auto' and 'fast' resolve
+    per platform from ops.scan.PRECISION_ROUTES (on a GPU, integer
+    dosages go to int8x3 resp. int8x2; exact wherever no route is
+    listed). The resolved name is returned as out['precision_tier'].
 
     stream: None (default) transparently streams SNP tiles from host
     when the scan's device footprint (G + rotated G @ W) would exceed
@@ -113,11 +118,11 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     tile-granular resume in streamed mode.
 
     resident: None (default) auto-promotes big int8 genomes that exceed
-    the in-core budget but FIT 2-bit packed in HBM (<= 6 GiB packed =
-    24 billion genotypes) to a device-resident packed container: one
-    upload, then the scan runs at MXU rates with zero wire traffic
-    (models.resident; measured analysis in docs/PERFORMANCE.md).
-    True forces it, False disables (falls back to streaming).
+    the in-core budget but FIT 2-bit packed in device memory
+    (models.resident.default_resident_budget) to a device-resident
+    packed container: one upload, then every scan is device compute with
+    no host traffic. True forces it, False disables (falls back to
+    streaming).
 
     mesh: a ('snp', 'sample') device mesh routes the scan through the
     sharded paths (parallel.distributed) — a ResidentGenome source (or
@@ -146,10 +151,13 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
     # ---- big-M routing: decide BEFORE _as_dosage materializes a full
     # float copy (40 GB at 1M x 10k); lazy sources (np.memmap, h5py
     # datasets) are left unmaterialized for the streamed path ----
-    from mixmogam_tpu.models.resident import (RESIDENT_BUDGET_BYTES,
-                                              ResidentGenome,
-                                              emmax_resident)
+    from mixmogam_tpu.models.resident import (ResidentGenome,
+                                              emmax_resident,
+                                              default_resident_budget)
     from mixmogam_tpu.models.source import resolve_source, should_stream
+
+    if stream_budget_bytes is None:
+        stream_budget_bytes = default_stream_budget()
 
     G_src = resolve_source(G)
     if isinstance(G, ResidentGenome) or isinstance(G_src, ResidentGenome):
@@ -188,7 +196,7 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
                                         stream_budget_bytes)
             packed_fits = (np.dtype(G_src.dtype) == np.int8
                            and G_src.shape[0] * ((n + 3) // 4)
-                           <= RESIDENT_BUDGET_BYTES)
+                           <= default_resident_budget())
             if resident is True or (over_incore and packed_fits):
                 rg = ResidentGenome.from_source(G_src, upload=False)
         rb = rotate_in_bf16
@@ -227,7 +235,7 @@ def emmax(G, y, K=None, X0=None, eig_k: Optional[Tuple] = None,
         over_incore = should_stream(G_src, n, dtype, stream_budget_bytes)
         packed_fits = (np.dtype(G_src.dtype) == np.int8
                        and G_src.shape[0] * ((n + 3) // 4)
-                       <= RESIDENT_BUDGET_BYTES)
+                       <= default_resident_budget())
         import jax as _jx
 
         if resident is True or (resident is None and over_incore

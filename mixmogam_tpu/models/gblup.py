@@ -17,8 +17,8 @@ All algebra rides the eigenbasis the package already computes:
                                                  their kinship rows vs train)
 
 Prediction is O(n^2) once — like the eigh, it runs in float64 on host
-(the TPU path's one-time decompositions policy, ops/eigen.py); the O(M n)
-kinship that feeds it uses the device int8 MXU path as usual.
+(the one-time decompositions policy, ops/eigen.py); the O(M n)
+kinship that feeds it uses the device int8 GEMM path as usual.
 
 PEV / reliability: prediction error variance of u_hat_i is
 sg2 * (K - K H^-1 K + K H^-1 X0 (X0'H^-1 X0)^-1 X0' H^-1 K)_ii
@@ -137,7 +137,7 @@ def gblup_predict(gd_or_G, y, train_idx: Sequence[int],
                   ) -> Tuple[np.ndarray, GblupModel]:
     """Convenience split-fit-predict over one genotype source.
 
-    Builds the joint kinship over ALL samples (device int8 MXU path via
+    Builds the joint kinship over ALL samples (device int8 GEMM path via
     GenotypeData.kinship / ops.kinship when gd_or_G is a GenotypeData or
     an int8 matrix; or pass K_all), fits on K[train, train] with
     y[train_idx], predicts the test samples through K[test, train].
@@ -200,7 +200,7 @@ def gblup_cv(gd_or_G, y, n_folds: int = 5, seed: int = 0,
 
 def _joint_kinship(gd_or_G, kinship_method: str) -> np.ndarray:
     """scale_k'd kinship over ALL samples of a GenotypeData / dosage
-    matrix / ResidentGenome (device int8 MXU path, ops/kinship.py)."""
+    matrix / ResidentGenome (device int8 GEMM path, ops/kinship.py)."""
     from mixmogam_tpu.oracle.kinship import scale_k
     from mixmogam_tpu.ops.kinship import kinship as build_kinship
 

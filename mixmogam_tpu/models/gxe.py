@@ -25,8 +25,8 @@ Round 4 (VERDICT r3 #3):
 - Precision tiers: the identity (G ∘ e) @ W == G @ (e[:, None] ∘ W)
   folds the environment into the WEIGHT side, so both rotations ride the
   same int8 digit-plane / bf16 split machinery as the plain scan
-  (ops.scan.quantize_rotation/apply_rotation); genotypes stay int8 on
-  the MXU. rescore_top re-tests the leading interaction hits at the
+  (ops.scan.quantize_rotation/apply_rotation); genotypes stay int8 in
+  the GEMM. rescore_top re-tests the leading interaction hits at the
   exact tier, the same contract as emmax(precision='fast').
 - Multi-environment batch: env may be (n, E); the genotype rotation
   R = G @ U is computed ONCE per tile and shared by every environment

@@ -16,8 +16,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mixmogam_tpu.models.emmax import (STREAM_BUDGET_BYTES,
-                                       _as_design, _as_dosage)
+from mixmogam_tpu.models.emmax import (_as_design, _as_dosage,
+                                       default_stream_budget)
 from mixmogam_tpu.ops.eigen import eigen_k
 from mixmogam_tpu.ops.stats import f_sf_host
 from mixmogam_tpu.ops.xreml import chol_small, chol_solve_small
@@ -193,7 +193,7 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
                       esp: float = 1e-6,
                       dtype=None, tile: Optional[int] = None,
                       tile_budget: int = 1 << 27,
-                      stream_budget_bytes: int = STREAM_BUDGET_BYTES,
+                      stream_budget_bytes: Optional[int] = None,
                       precision: Optional[str] = None,
                       _keep_cols: Optional[np.ndarray] = None,
                       mesh=None) -> Dict[str, np.ndarray]:
@@ -215,8 +215,9 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
     the per-tile cost all T traits amortize ('exact'/'auto'/'high'/
     'bf16*'/'int8x*', same semantics as emmax; int8 tiers need
     fully-observed integer dosages). 'fast' is refused: multi-trait
-    has no rescore pass, so pick a fp32-grade tier ('auto' resolves to
-    int8x3 on TPU integer data, ~1.4e-6 drift) or the default exact.
+    has no rescore pass, so pick a fp32-grade tier ('auto' resolves per
+    ops.scan.PRECISION_ROUTES: int8x3 for integer data on a GPU) or the
+    default exact.
     In-core and resident sources only; per-trait REML always runs
     exact (f64 host).
 
@@ -272,6 +273,8 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
         elif rg.n != n:
             raise ValueError(f"Y has {n} samples but the resident "
                              f"genome holds {rg.n}")
+    if stream_budget_bytes is None:
+        stream_budget_bytes = default_stream_budget()
     streamed = (False if rg is not None
                 else should_stream(G_src, n, dtype, stream_budget_bytes))
     if mesh is not None:
@@ -511,10 +514,8 @@ def emmax_multi_trait(G, Y, K=None, X0: Optional[np.ndarray] = None,
                     Gt = _impute_tile(Gt, dtype)
             elif streamed:
                 from mixmogam_tpu.models.source import fetch_tile
-                from mixmogam_tpu.ops.pack2 import default_pack_transfer
 
-                Gt = fetch_tile(G_src, s, e, tile, n, dtype,
-                                default_pack_transfer())
+                Gt = fetch_tile(G_src, s, e, tile, n, dtype)
             else:
                 Gt = Gd[s:e]
                 if e - s < tile:

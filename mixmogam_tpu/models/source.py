@@ -19,6 +19,16 @@ def resolve_source(G):
     return np.asarray(G)
 
 
+def device_budget(fraction: float, fallback: int) -> int:
+    """`fraction` of the default device's memory limit
+    (memory_stats()['bytes_limit']), or `fallback` bytes on a backend
+    that reports no limit (the CPU)."""
+    import jax
+
+    limit = (jax.devices()[0].memory_stats() or {}).get("bytes_limit")
+    return int(fraction * limit) if limit else fallback
+
+
 def should_stream(G_src, n: int, dtype, budget_bytes: int) -> bool:
     """True when the in-core scan's device footprint (G + the rotated
     G @ W at compute dtype) would exceed the budget."""
@@ -34,11 +44,11 @@ def pack_for_mesh(G_src, n: int, what: str):
     (upload=False — the sharded path uploads per-chip shards, never the
     whole genome to one device); anything else is refused. Shared by
     emmax_multi_trait and emma (review r5-cont #6)."""
-    from mixmogam_tpu.models.resident import (RESIDENT_BUDGET_BYTES,
-                                              ResidentGenome)
+    from mixmogam_tpu.models.resident import (ResidentGenome,
+                                              default_resident_budget)
 
     if (np.dtype(G_src.dtype) == np.int8
-            and G_src.shape[0] * ((n + 3) // 4) <= RESIDENT_BUDGET_BYTES):
+            and G_src.shape[0] * ((n + 3) // 4) <= default_resident_budget()):
         return ResidentGenome.from_source(G_src, upload=False)
     raise ValueError(
         f"the mesh {what} path shards in-core or packed sources; this "
@@ -65,22 +75,20 @@ def prefetch_iter(keys, prep, lookahead: int = 2):
             yield k, futs.pop(k).result()
 
 
-def fetch_tile(G_src, s: int, e: int, tile: int, n: int, dtype,
-               pack: bool) -> jnp.ndarray:
+def fetch_tile(G_src, s: int, e: int, tile: int, n: int,
+               dtype) -> jnp.ndarray:
     """One (tile, n) float tile on device from a host source: int8
-    sources ship (2-bit packed when pack) and mean-impute ON DEVICE;
-    float sources mean-impute per tile on host (NaN = missing). Rows
-    past e are zero-padded to the static tile shape."""
+    sources ship as int8 and mean-impute ON DEVICE; float sources
+    mean-impute per tile on host (NaN = missing). Rows past e are
+    zero-padded to the static tile shape."""
     from mixmogam_tpu.models.streaming import _host_float_tile, _impute_tile
-    from mixmogam_tpu.ops.pack2 import ship_int8_tile
 
     if np.dtype(G_src.dtype) == np.int8:
         chunk = np.ascontiguousarray(np.asarray(G_src[s:e], dtype=np.int8))
         if e - s < tile:
             chunk = np.vstack(
                 [chunk, np.zeros((tile - (e - s), n), np.int8)])
-        return _impute_tile(ship_int8_tile(chunk, n, pack),
-                            np.dtype(dtype).name)
+        return _impute_tile(jnp.asarray(chunk), np.dtype(dtype).name)
     chunk = _host_float_tile(G_src[s:e], np.dtype(dtype))
     if e - s < tile:
         chunk = np.vstack(

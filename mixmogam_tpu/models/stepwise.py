@@ -69,7 +69,7 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
                     ulim: float = 10.0, esp: float = 1e-6,
                     dtype=None, tile: int = 8192, eig_k=None,
                     save_scans: bool = False, early_stop: bool = False,
-                    rot_budget_bytes: int = 8 << 30,
+                    rot_budget_bytes: Optional[int] = None,
                     mesh=None) -> Dict:
     """Returns {'steps': [...], 'selected': {criterion: {...}},
     'bonf_threshold': float} — same schema as the oracle
@@ -81,10 +81,11 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
     pick the best step (the oracle-parity behavior).
 
     Memory strategy: when the rotated genotype matrix fits in
-    rot_budget_bytes of HBM it is stored once (per-step scans are then
-    pure elementwise); otherwise scans STREAM int8 tiles from host,
-    imputing on device and paying the rotation matmul per step
-    (BASELINE config #5: 1M SNPs x 10k samples).
+    rot_budget_bytes of device memory (default: half the device's
+    memory limit, 8 GiB where it reports none) it is stored once
+    (per-step scans are then pure elementwise); otherwise scans STREAM
+    int8 tiles from host, imputing on device and paying the rotation
+    matmul per step (BASELINE config #5: 1M SNPs x 10k samples).
 
     mesh: a ('snp', 'sample') device mesh (parallel.mesh.make_mesh)
     distributes the stepwise campaign (VERDICT r4 #4): the rotated
@@ -113,6 +114,10 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
     M = (rg.M if rg is not None
          else np.asarray(G.matrix if hasattr(G, "matrix") else G).shape[0])
     itemsize = np.dtype(np.dtype(dtype).name).itemsize
+    if rot_budget_bytes is None:
+        from mixmogam_tpu.models.source import device_budget
+
+        rot_budget_bytes = device_budget(1 / 2, 8 << 30)
     use_stored = M * n * itemsize <= rot_budget_bytes
     if mesh is not None:
         if rg is not None:
@@ -304,7 +309,7 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
             return rot, emmax_scan_all(G_rot, rot, tile=tile,
                                        pre_rotated=True)
         if rg is not None:
-            # packed HBM source: per-step rotation matmul at MXU rate,
+            # packed device source: per-step rotation GEMM,
             # zero host traffic (models.resident)
             from mixmogam_tpu.models.resident import emmax_scan_packed
 
@@ -312,9 +317,8 @@ def emmax_step_wise(G, y, K=None, max_steps: int = 10,
                                        dtype, pad_to=pad_to,
                                        U=None if identity_k else U)
             # stepwise scans rotate with the full fp32 W (exact tier),
-            # whose measured-best granularity is the container's 16,384
-            # (scripts/tier_tile_probe.py — 8,192 wins only for the
-            # quantized tiers)
+            # at the container's 16,384-row granularity (as
+            # emmax_resident's exact tier)
             d = emmax_scan_packed(rg.packed, rot, n, rg.tile,
                                   impute=rg.has_missing,
                                   pre_rotated=identity_k)

@@ -5,7 +5,7 @@ get_REML / get_ML in linear_models.py — a 100-point grid on log(delta)
 with per-bracket root refinement (defaults ngrids=100, llim=-10, ulim=10,
 esp=1e-6).
 
-TPU-first redesign: the grid evaluation is one broadcast over
+Device design: the grid evaluation is one broadcast over
 (grid_points, spectrum) — no Python loop; ALL sign-change brackets are
 refined simultaneously by a fixed-iteration bisection (masked lanes idle),
 so the whole optimizer is a single jitted, vmap-able function. vmap over
@@ -127,8 +127,8 @@ def _explicit_reml_host(phi, y_rot, X_rot, ngrids: int = 100,
       sum_i ln(xi_i + d)       == ln|H| + ln|X'H^-1X| - ln|X'X|
       sum_i eta_i^2/(xi_i + d) == y'Py
     so the optimum is identical — WITHOUT the second O(n^3) host eigh of
-    S(K+I)S (reference _get_eigen_R_), which at n=10k costs ~200 s on
-    this image's 2-vCPU host. Every evaluation here is O(n q^2) numpy.
+    S(K+I)S (reference _get_eigen_R_), as slow as the first at n=10k.
+    Every evaluation here is O(n q^2) numpy.
 
     Mirrors reml_from_spectrum's optimizer semantics exactly: dLL/dlogd
     on the grid, bisection in every +->- bracket, argmax of LL over
@@ -233,15 +233,15 @@ def fit_null_model(y, X0, K=None, eig_k: Optional[Tuple] = None,
       'explicit' (= 'auto', the default): X-explicit likelihood from
         eigh(K) ALONE, optimized in float64 on host — identical optimum
         (identities pinned by tests), skips the reference's second
-        O(n^3) eigh of S(K+I)S entirely (~200 s at n=10k on this host)
-        and never reconstructs K from eig_k.
+        O(n^3) eigh of S(K+I)S entirely and never reconstructs K from
+        eig_k.
       'spectrum': the reference-shaped projected-spectrum path
         (eigh(S(K+I)S) then grid+bisection on the device), kept for
         parity testing and for callers that want the device optimizer.
 
     eigh_dtype: factorization dtype for the one-time host eigh of K
     when eig_k is not supplied (None = float64; np.float32 = ssyevd,
-    measured 1.45x faster at n=10k — the precision='fast' routing).
+    the precision='fast' routing).
     """
     import numpy as np
 

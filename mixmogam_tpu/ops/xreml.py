@@ -1,8 +1,8 @@
-"""X-explicit REML in the kinship eigenbasis — the TPU-native EMMA engine
+"""X-explicit REML in the kinship eigenbasis — the device EMMA engine
 (SURVEY.md A.4).
 
 The reference's EMMA (linear_models.emma) re-eigendecomposes S_x(K+I)S_x
-for EVERY SNP — O(M n^3), the 'killer' loop of §3.3. TPU-first redesign:
+for EVERY SNP — O(M n^3), the 'killer' loop of §3.3. Device redesign:
 rotate once into eigh(K)'s basis, where H = K + delta*I is DIAGONAL, and
 evaluate the same REML likelihood through explicit design-matrix algebra:
 
@@ -37,8 +37,8 @@ import jax.numpy as jnp
 
 def chol_small(A: jnp.ndarray) -> jnp.ndarray:
     """Cholesky of (..., p, p) SPD matrices with p small & static, unrolled
-    into elementwise ops (TPU-friendly: LAPACK-style custom calls compile
-    minutes-slow through this toolchain and don't batch well)."""
+    into elementwise ops (batches under vmap, where a LAPACK-style custom
+    call per matrix would not)."""
     p = A.shape[-1]
     L = [[None] * p for _ in range(p)]
     for i in range(p):

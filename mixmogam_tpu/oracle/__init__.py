@@ -18,10 +18,11 @@ the reference (bvilhjal/mixmogam) directly implements (SURVEY.md Appendix A):
 - A.6 OLS / ANOVA / Kruskal-Wallis / permutation
   (reference: linear_models.py linear_model / anova / kruskal_wallis).
 
-The TPU path must match this oracle's p-values to <=1e-6 (BASELINE.json).
+The device path must match this oracle's p-values to <=1e-6 in float64
+(BASELINE.json).
 The oracle is deliberately written in the reference's algorithmic shape
 (chunked kinship, explicit grid REML, per-SNP lstsq scan) — NOT vectorized
-the TPU way — so it is an independent check, not a mirror of the device code.
+the device way — so it is an independent check, not a mirror of the device code.
 """
 
 from mixmogam_tpu.oracle.kinship import (

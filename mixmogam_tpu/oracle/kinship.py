@@ -9,7 +9,7 @@ Genotype convention throughout the framework:
   Binary coding (inbred lines, the reference's bundled Arabidopsis data):
   values in {0, 1}. Diploid coding: {0, 1, 2}. Missing = NaN (imputed by
   per-SNP mean BEFORE kinship/scan — the documented rule shared by oracle
-  and TPU kernels, SURVEY.md A.1).
+  and device kernels, SURVEY.md A.1).
 """
 
 from __future__ import annotations

@@ -190,7 +190,7 @@ class Result:
         header = cols + extra
         order = self._order()
         # vectorized formatting: per-cell str() in a Python loop costs
-        # minutes at the 1M-SNP scale (~7M str calls on a 2-vCPU host).
+        # minutes at the 1M-SNP scale (~7M str calls).
         # astype(str) sizes the unicode itemsize to the longest element —
         # a fixed U32 would silently truncate long strings (e.g. marker
         # names) in `additional` columns.

@@ -7,7 +7,7 @@ O(n^3) artifact worth reusing across traits/runs).
 Robustness (review r5-cont, same treatment models/loco.py's eigen cache
 got): every artifact writes via a PID-unique temp file + os.replace (a
 kill mid-savez must not leave a truncated .npz — an 800 MB compressed K
-takes minutes on this 2-vCPU host, a wide kill window), and loads
+takes minutes of host CPU, a wide kill window), and loads
 tolerate a corrupt entry by recomputing instead of aborting."""
 
 from __future__ import annotations
@@ -80,8 +80,8 @@ def cached_kinship(gd, method: str = "ibs",
 def cached_eigen(K: np.ndarray, cache_dir: Optional[str] = None,
                  key: Optional[str] = None) -> Tuple[np.ndarray, np.ndarray]:
     """eigh(K) (descending) with on-disk cache (uncompressed: U is
-    ~800 MB f64 at n=10,240 and compression costs ~a minute of host CPU
-    per save on this image for little gain on an orthonormal basis)."""
+    ~800 MB f64 at n=10,240 and compression costs host CPU time per
+    save for little gain on an orthonormal basis)."""
     import hashlib
 
     from mixmogam_tpu.ops.eigen import eigen_k

@@ -5,7 +5,7 @@
 // a bottleneck for the 1M-SNP configs this framework targets. This module
 // is the host-side data-plane in C++: a threaded CSV->int8 dosage parser
 // and a 2-bit genotype packer/unpacker, exposed through a C ABI consumed
-// via ctypes (no pybind11 in this image).
+// via ctypes (no pybind11 dependency).
 //
 // Layout contract (shared with data/genotype.py): row-major (M, n) int8,
 // missing = -1; chromosomes int32, positions int64.

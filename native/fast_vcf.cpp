@@ -4,7 +4,7 @@
 // reader (data/vcf.py) is line-by-line pure Python — fine for toy files,
 // a bottleneck at cohort scale where the GT matrix is GBs. Round 3's
 // parser slurped the whole file into RAM plus a second counting pass
-// (ADVICE r3: multi-GB cohort VCFs could OOM the 2-vCPU host); this is
+// (ADVICE r3: multi-GB cohort VCFs could OOM a small host); this is
 // a one-pass STREAMING parser behind an opaque handle:
 //
 //   vcf_open(path)  -> handle; reads the header, exposes n_samples.

@@ -1,6 +1,7 @@
 """Device (JAX) vs oracle parity — SURVEY.md §4.2: kinship, REML delta,
 EMMAX p-values to <=1e-6 (these run on CPU x64 where parity lands ~1e-10;
-the fp32 TPU path is covered by looser-tolerance tests in test_fp32.py)."""
+the float32 production path is covered by looser-tolerance envelope
+tests, e.g. test_kernels.py TestFp32Characterization)."""
 
 import jax
 import jax.numpy as jnp

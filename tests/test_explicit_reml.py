@@ -3,7 +3,7 @@
 Round-3 change: fit_null_model's default method='explicit' computes the
 (RE)ML optimum from eigh(K) ALONE (float64 host moments), replacing the
 projected-spectrum path's second O(n^3) host eigh (reference
-_get_eigen_R_, ~200 s at n=10k on this image). These tests pin that the
+_get_eigen_R_). These tests pin that the
 two formulations find the SAME optimum (the determinant/quadratic
 identities of ops.xreml), including the ML variant, cofactor designs and
 the eig_k-without-K entry that previously reconstructed K on host.

@@ -1,12 +1,8 @@
 """precision='fast' plumbing added after the round-3 resident work:
 the f32 host eigh (ssyevd) fast tier (ops/eigen.py factor_dtype,
-fit_null_model eigh_dtype) and its routing from the facades.
-
-Measured basis (docs/PERFORMANCE.md): ssyevd at n=10,240 is ~1.45x
-faster than dsyevd on this host (181 vs 262 s standalone; REML delta
-drift on the real campaign K measured exactly 0.0); downstream drift through the full
-EMMAX pipeline measured |dlog10 p| ~ 5e-6 at n=512 — far inside the
-fp32 device envelope, and 'fast' rescores reported hits exactly anyway.
+fit_null_model eigh_dtype) and its routing from the facades. The f32
+eigh keeps p-values inside the fp32 device envelope, and 'fast'
+rescores reported hits exactly anyway.
 """
 
 import numpy as np

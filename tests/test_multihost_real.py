@@ -24,9 +24,7 @@ def test_two_process_distributed_parity():
     worker = os.path.join(os.path.dirname(__file__), "multihost_worker.py")
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)  # worker sets its own device count
-    # suppress the parent conftest's platform config leaking via pytest
-    env["JAX_PLATFORMS"] = ""
-    env["JAX_PLATFORM_NAME"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     procs = [subprocess.Popen(
@@ -92,8 +90,7 @@ print("DONE", flush=True)
     np.savez(data, G=G, y=y, K=K)
 
     env = dict(os.environ)
-    env["JAX_PLATFORMS"] = ""
-    env["JAX_PLATFORM_NAME"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.Popen([sys.executable, "-c", worker],

@@ -2,7 +2,7 @@
 
 These pin the oracle's correctness via mathematical identities that any
 correct EMMA/EMMAX implementation must satisfy — they are the foundation
-the TPU-path parity tests stand on.
+the device-path parity tests stand on.
 """
 
 import numpy as np
@@ -108,7 +108,7 @@ class TestReml:
 
     def test_projected_spectrum_determinant_identity(self, tiny_dataset,
                                                      kinship_tiny):
-        """Pins the identity the TPU EMMA path relies on:
+        """Pins the identity the device EMMA path relies on:
         prod(xi_i + d) == |H| * |X'H^-1X| / |X'X| with H = K + d I."""
         K = kinship_tiny
         n = K.shape[0]

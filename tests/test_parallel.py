@@ -2,6 +2,7 @@
 numerical invariance to mesh shape, psum kinship parity, graft entries."""
 
 import importlib
+import os
 import sys
 
 import jax
@@ -69,7 +70,7 @@ class TestDistributedEmmax:
                                     meshes):
         """The split-W bf16x3 tier also runs sharded and stays close to
         the exact path (fp32-grade — CPU bf16 emulation is looser than
-        the MXU, hence the modest tolerance)."""
+        a tensor-core bf16 GEMM, hence the modest tolerance)."""
         G, y, K = small_dataset["G"], small_dataset["y"], kinship_small
         ref = emmax(G, y, K=K)
         d = distributed_emmax(G, y, K=K, mesh=meshes["snp8"],
@@ -139,14 +140,16 @@ class TestTrainStep:
 
 class TestGraftEntry:
     def test_entry_compiles(self):
-        sys.path.insert(0, "/root/repo")
+        sys.path.insert(0, os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
         ge = importlib.import_module("__graft_entry__")
         fn, args = ge.entry()
         out = jax.jit(fn)(*args)
         assert np.isfinite(np.asarray(out)).all()
 
     def test_dryrun_multichip(self):
-        sys.path.insert(0, "/root/repo")
+        sys.path.insert(0, os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
         ge = importlib.import_module("__graft_entry__")
         ge.dryrun_multichip(8)
 

@@ -80,7 +80,7 @@ class TestResidentScan:
 
     def test_fast_precision_with_rescore(self):
         """'fast' resolves to a tier + rescore; on CPU it resolves to
-        exact (no bf16/int8 MXU), so just pin the auto path runs and
+        exact (no routes for the CPU), so just pin the auto path runs and
         reports a tier."""
         G, _, y = _data(6)
         K = scale_k(kinship(G, method="ibs"))
@@ -169,6 +169,35 @@ class TestRouting:
 
     def test_budget_constant_sane(self):
         assert RESIDENT_BUDGET_BYTES >= (1 << 30)
+
+    @pytest.mark.parametrize("stats", [{"bytes_limit": 64 << 30}, {}, None])
+    def test_budgets_follow_device_limit(self, monkeypatch, stats):
+        """Each budget is its stated fraction of the device's memory
+        limit; a backend that reports none (the CPU) keeps the fixed
+        fallback."""
+        import importlib
+
+        import jax
+
+        from mixmogam_tpu.models.source import device_budget
+
+        # (the package re-exports emmax the function under the module name)
+        emmax_mod = importlib.import_module("mixmogam_tpu.models.emmax")
+        resident_mod = importlib.import_module("mixmogam_tpu.models.resident")
+
+        class FakeDevice:
+            def memory_stats(self):
+                return stats
+
+        monkeypatch.setattr(jax, "devices", lambda *a: [FakeDevice()])
+        limit = (stats or {}).get("bytes_limit")
+        for got, frac, fallback in [
+                (resident_mod.default_resident_budget(),
+                 resident_mod.RESIDENT_FRACTION, RESIDENT_BUDGET_BYTES),
+                (emmax_mod.default_stream_budget(),
+                 emmax_mod.STREAM_FRACTION, emmax_mod.STREAM_BUDGET_BYTES),
+                (device_budget(0.5, 123), 0.5, 123)]:
+            assert got == (int(frac * limit) if limit else fallback)
 
 
 class TestResidentStepwise:

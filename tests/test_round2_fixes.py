@@ -705,7 +705,7 @@ class TestFastTier:
         G_int = small_dataset["G_int"]
         y, K = small_dataset["y"], kinship_small
         fast = emmax(G_int, y, K=K, stream=False, precision="fast")
-        # on CPU 'fast' resolves to exact (no TPU): rescore is a no-op
+        # on CPU 'fast' resolves to exact (no routes): rescore is a no-op
         # but the call must succeed and return a tier name
         assert fast["precision_tier"] in ("exact", "int8x2", "bf16")
         ref = emmax(G_int, y, K=K, stream=False)
@@ -729,14 +729,15 @@ class TestFastTier:
 
 class TestSecondReviewFixes:
     def test_fast_resolves_int8x2_for_int_dosage(self):
-        from mixmogam_tpu.ops.scan import resolve_precision
+        from mixmogam_tpu.ops.scan import PRECISION_ROUTES, resolve_precision
 
+        int_tier, frac_tier = PRECISION_ROUTES["gpu"]["fast"]
         G = np.array([[0, 1, 2]], np.int8)
-        _, _, name = resolve_precision("fast", G=G, backend="tpu")
-        assert name == "int8x2"
+        _, _, name = resolve_precision("fast", G=G, backend="gpu")
+        assert name == int_tier
         _, _, name = resolve_precision("fast", G=G.astype(np.float64) + 0.5,
-                                       backend="tpu")
-        assert name == "bf16"
+                                       backend="gpu")
+        assert name == frac_tier
         _, _, name = resolve_precision("fast", G=G, backend="cpu")
         assert name == "exact"
 
@@ -763,27 +764,6 @@ class TestSecondReviewFixes:
         with pytest.raises(ValueError, match="score_type"):
             emmax_two_snps(small_dataset["G"], small_dataset["y"],
                            K=kinship_small, from_result=r)
-
-    def test_pallas_int8_rounds_float_input(self, small_dataset,
-                                            kinship_small):
-        from mixmogam_tpu.ops.pallas_scan import pallas_rotate_scan_int8
-        from mixmogam_tpu.ops.reml import fit_null_model
-        from mixmogam_tpu.ops.scan import build_rotated_null, emmax_scan_all
-
-        import jax.numpy as jnp
-
-        y = small_dataset["y"].astype(np.float32)
-        K = kinship_small.astype(np.float32)
-        null = fit_null_model(y, np.ones((len(y), 1), np.float32), K=K)
-        rot = build_rotated_null(null, rotate_dtype="int8x3")
-        # float dosages with representation error: 2 - 1e-7 must ROUND
-        # to 2 (the XLA tier's behavior), not truncate to 1
-        Gf = small_dataset["G_int"][:64].astype(np.float32) * (1 - 5e-8)
-        ref = emmax_scan_all(jnp.asarray(Gf), rot, tile=64)
-        pal = pallas_rotate_scan_int8(Gf, rot, tm=64, nb=128)
-        np.testing.assert_allclose(np.asarray(pal["f_stats"]),
-                                   np.asarray(ref["f_stats"]),
-                                   rtol=1e-4, atol=1e-4)
 
     def test_rotate_streamed_single_shape_overlap(self, small_dataset,
                                                   kinship_small):

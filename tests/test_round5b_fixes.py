@@ -177,7 +177,6 @@ class TestOpsReviewFixes:
 
     def test_readonly_float_memmap_streams(self, tmp_path):
         from mixmogam_tpu.models.source import fetch_tile
-        from mixmogam_tpu.ops.pack2 import default_pack_transfer
 
         rng = np.random.default_rng(2)
         G = rng.random((8, 12))
@@ -185,8 +184,7 @@ class TestOpsReviewFixes:
         path = tmp_path / "g.npy"
         np.save(path, G)
         mm = np.load(path, mmap_mode="r")     # read-only view
-        t = fetch_tile(mm, 0, 8, 8, 12, np.float64,
-                       default_pack_transfer())
+        t = fetch_tile(mm, 0, 8, 8, 12, np.float64)
         assert np.isfinite(np.asarray(t)).all()
 
     def test_truncated_manifest_restarts_instead_of_crashing(

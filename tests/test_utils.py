@@ -1,6 +1,10 @@
 """Profiling utils + CLI surface tests."""
 
 import json
+import os
+import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -57,27 +61,45 @@ class TestCli:
         assert esp_to_refine_iters(1.0) == 16    # clamped
 
 
-class TestFetchArray:
-    """ops/transfer.fetch_array — chunked-async D2H (content parity;
-    the throughput claim is scripts/d2h_probe.py's)."""
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-    def test_matches_asarray_across_shapes(self):
-        import jax.numpy as jnp
-        import numpy as np
 
-        from mixmogam_tpu.ops.transfer import fetch_array
+def _run_python(args, cwd, **env):
+    full = {k: v for k, v in os.environ.items()
+            if k != "JAX_COMPILATION_CACHE_DIR"}
+    full.update(JAX_PLATFORMS="cpu", **env)
+    return subprocess.run([sys.executable] + args, cwd=cwd, env=full,
+                          capture_output=True, text=True, timeout=120)
 
-        for shape, chunk in [((64, 17), 256), ((64, 17), 1 << 30),
-                             ((7,), 64), ((33, 5, 2), 128)]:
-            x = jnp.arange(int(np.prod(shape)),
-                           dtype=jnp.float32).reshape(shape)
-            np.testing.assert_array_equal(fetch_array(x, chunk_bytes=chunk),
-                                          np.asarray(x))
 
-    def test_host_input_passthrough(self):
-        import numpy as np
+class TestCompileCache:
+    """JAX_COMPILATION_CACHE_DIR wins; otherwise the cache sits at a
+    fixed <checkout>/.jax_cache (a fresh process each: the rule runs
+    when mixmogam_tpu.ops is imported)."""
 
-        from mixmogam_tpu.ops.transfer import fetch_array
+    @pytest.mark.parametrize("from_env", [True, False])
+    def test_cache_dir_rule(self, tmp_path, from_env):
+        env = ({"JAX_COMPILATION_CACHE_DIR": str(tmp_path / "cc")}
+               if from_env else {})
+        r = _run_python(
+            ["-c", "import jax, mixmogam_tpu.ops; "
+                   "print(jax.config.jax_compilation_cache_dir)"],
+            cwd=REPO, **env)
+        assert r.returncode == 0, r.stderr
+        want = (str(tmp_path / "cc") if from_env
+                else os.path.join(REPO, ".jax_cache"))
+        assert r.stdout.strip().splitlines()[-1] == want
 
-        a = np.random.default_rng(0).normal(size=(10, 3))
-        np.testing.assert_array_equal(fetch_array(a), a)
+
+class TestChipSmoke:
+    """chip_smoke.py never reports a result without a GPU."""
+
+    @pytest.mark.parametrize("alone", [False, True])
+    def test_fails_without_gpu(self, tmp_path, alone):
+        script = os.path.join(REPO, "chip_smoke.py")
+        if alone:       # a directory with the script and no package
+            shutil.copy(script, tmp_path)
+            script = str(tmp_path / "chip_smoke.py")
+        r = _run_python([script], cwd=str(tmp_path))
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout

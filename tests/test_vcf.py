@@ -401,10 +401,12 @@ class TestRound4VcfFeatures:
         K = scale_k(np.eye(n) + 0.05)
         out = emmax(gd, y, K=K)
         assert np.isfinite(out["ps"]).all()
-        # 'auto' refuses int8 for fractional dosages -> exact
+        # 'auto' takes the fractional route (never int8) for dosages
+        from mixmogam_tpu.ops.scan import PRECISION_ROUTES
+
         _, _, name = resolve_precision("auto", G=gd.matrix,
-                                       backend="tpu")
-        assert name == "exact"
+                                       backend="gpu")
+        assert name == PRECISION_ROUTES["gpu"]["auto"][1]
 
     def test_dosage_data_surface(self, tmp_path):
         from mixmogam_tpu.data.genotype import DosageData
