@@ -30,6 +30,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -102,13 +103,13 @@ def check_f32_envelope(name, p32, p_ref, h2_32=None, h2_ref=None,
 # ---------------------------------------------------------------------------
 
 def _read_pvals(path):
-    """(chromosome, position) -> p from a ranked pvals CSV."""
+    """[((chromosome, position), p)] from a ranked pvals CSV."""
     with open(path) as f:
         header = f.readline().strip().split(",")
         rows = [line.split(",") for line in f.read().splitlines() if line]
     ic, ip, isc = (header.index(k)
                    for k in ("chromosomes", "positions", "scores"))
-    return {(int(r[ic]), int(r[ip])): float(r[isc]) for r in rows}
+    return [((int(r[ic]), int(r[ip])), float(r[isc])) for r in rows]
 
 
 def _cli_run(prefix, out):
@@ -157,11 +158,20 @@ def phase_a(workdir: str, seed: int, n: int = 200, m: int = 10_000):
     K = oracle.scale_k(oracle.ibs_kinship(Gf, ploidy=2))
     ref = oracle.emmax_scan(Gf, y, K)
     keys = list(zip(gd2.chromosomes.tolist(), gd2.positions.tolist()))
-    if sorted(keys) != sorted(p64):
-        raise AssertionError("CLI and oracle scanned different SNP sets")
-    p_or = ref["ps"]
-    p_64 = np.array([p64[k] for k in keys])
-    p_32 = np.array([p32[k] for k in keys])
+    count = Counter(keys)
+    for rows in (p32, p64):
+        if Counter(k for k, _ in rows) != count:
+            raise AssertionError("CLI and oracle scanned different SNP sets")
+    # the simulator may draw one position twice; such SNPs cannot be told
+    # apart in the ranked output, so they are left out of the comparison
+    keep = [i for i, k in enumerate(keys) if count[k] == 1]
+    p_or = ref["ps"][keep]
+    by64, by32 = dict(p64), dict(p32)
+    p_64 = np.array([by64[keys[i]] for i in keep])
+    p_32 = np.array([by32[keys[i]] for i in keep])
+    if len(keep) < len(keys):
+        log(f"phase A: {len(keys) - len(keep)} SNPs share a position and "
+            f"are left out of the comparison")
     d64 = float(np.max(np.abs(p_64 - p_or)))
     log(f"phase A: f64 max|dp| vs oracle {d64:.3e} (limit {F64_P_TOL:g}); "
         f"h2 device {s64['pseudo_heritability']:.6f} "
@@ -288,7 +298,6 @@ def phase_b(seed: int, n: int = 10_240, m: int = 65_536,
     from mixmogam_tpu.models.resident import (ResidentGenome,
                                               emmax_scan_packed,
                                               subdivide_tile)
-    from mixmogam_tpu.ops import kinship as dk
     from mixmogam_tpu.ops.eigen import eigen_k
     from mixmogam_tpu.ops.reml import fit_null_model
     from mixmogam_tpu.ops.scan import (TIER_P_DRIFT, build_rotated_null,
@@ -302,14 +311,6 @@ def phase_b(seed: int, n: int = 10_240, m: int = 65_536,
     K, t_kin = _timed(api.calc_ibs_kinship, G)
     log(f"kinship (api.calc_ibs_kinship, {m} SNPs): {t_kin:.3f} s "
         f"= {m / t_kin:,.0f} SNPs/s")
-    pack_walls = {True: [], False: []}
-    for pack in (True, False, False, True):
-        _, t = _timed(dk.kinship, G, pack_transfer=pack)
-        pack_walls[pack].append(t)
-    log("streamed kinship pack_transfer=True: "
-        + " ".join(f"{t:.3f}" for t in pack_walls[True])
-        + " s; pack_transfer=False: "
-        + " ".join(f"{t:.3f}" for t in pack_walls[False]) + " s")
     gram_forms(G[:2048], reps)
     check_kinship_exact(G, m_kin)
 
@@ -382,15 +383,9 @@ def phase_b(seed: int, n: int = 10_240, m: int = 65_536,
         for ln in lines:
             log(f"  scan {tier} HLO: {ln}")
 
-    # ---- exact tier against the float64 oracle on a subset ----
-    t0 = time.perf_counter()
-    p_or = oracle_rotated_ps(G[:m_oracle], y, phi, U, delta)
-    log(f"oracle on {m_oracle} SNPs: {time.perf_counter() - t0:.2f} s")
-    check_f32_envelope(f"phase B: exact tier vs oracle ({m_oracle} SNPs)",
-                       ex["ps"][:m_oracle], p_or)
-
-    # ---- fast tiers against the exact tier (checked last, after every
-    # number above is printed) ----
+    # ---- fast tiers against the exact tier, then the exact tier against
+    # the float64 oracle on a subset (checked last, after every number
+    # is printed) ----
     failed = []
     for tier in FAST_TIERS:
         d = float(np.max(np.abs(res[tier]["ps"] - ex["ps"])))
@@ -398,6 +393,11 @@ def phase_b(seed: int, n: int = 10_240, m: int = 65_536,
         log(f"drift {tier}: max|dp| vs exact {d:.3e} (bound {bound:.1e})")
         if d > bound:
             failed.append(tier)
+    t0 = time.perf_counter()
+    p_or = oracle_rotated_ps(G[:m_oracle], y, phi, U, delta)
+    log(f"oracle on {m_oracle} SNPs: {time.perf_counter() - t0:.2f} s")
+    check_f32_envelope(f"phase B: exact tier vs oracle ({m_oracle} SNPs)",
+                       ex["ps"][:m_oracle], p_or)
     if failed:
         raise AssertionError(f"tiers over their TIER_P_DRIFT bound: {failed}")
 
@@ -407,6 +407,9 @@ def phase_b(seed: int, n: int = 10_240, m: int = 65_536,
 # ---------------------------------------------------------------------------
 
 MESH_TIERS = ("exact", "int8x3", "int8x2")
+#: exact float32 on a sample-sharded mesh against one card: twice the
+#: reading on the (2, 2) mesh (4.59e-6, PERF.md), rounded up to one digit
+MESH_F32_P_TOL = 1e-5
 
 
 def _mesh_parity(devs, rg, y, K, eig, tier, x64: bool):
@@ -414,7 +417,7 @@ def _mesh_parity(devs, rg, y, K, eig, tier, x64: bool):
     (2, 2): the int8 tiers must agree bit for bit (their partial
     rotations reduce as int32); the exact tier to 1e-6 in float64. In
     float32 the exact tier's sample-sharded psum reassociates float
-    sums, so its delta is reported only."""
+    sums, so it is held to MESH_F32_P_TOL and the f32 envelope."""
     from mixmogam_tpu import api
     from mixmogam_tpu.parallel.mesh import make_mesh
 
@@ -433,8 +436,11 @@ def _mesh_parity(devs, rg, y, K, eig, tier, x64: bool):
             f"{d:.3e}, bit-identical {same}")
         if tier != "exact" and not same:
             raise AssertionError(f"mesh {shape} {name} not bit-identical")
-        if tier == "exact" and x64 and d > F64_P_TOL:
+        if tier == "exact" and d > (F64_P_TOL if x64 else MESH_F32_P_TOL):
             raise AssertionError(f"mesh {shape} {name} delta {d:.3e}")
+        if tier == "exact" and not x64:
+            check_f32_envelope(f"mesh {shape} {name} vs one card",
+                               out["ps"], one["ps"])
 
 
 def phase_c(devs, seed: int, n: int = 10_240, m: int = 65_536):

@@ -299,7 +299,7 @@ class DosageData(GenotypeData):
     sample selection, phenotype coordination, kinship delegation); the
     scan paths treat the float matrix like any imputed source. Dosages
     are fractional, so the int8 digit-plane tiers refuse it
-    (precision='auto'/'fast' resolve to exact/bf16) and the 2-bit
+    (precision='auto'/'fast' resolve to exact) and the 2-bit
     ResidentGenome packing does not apply — use the streamed float path
     at scale. MAC/MAF are EXPECTED allele counts (sums of dosages over
     observed samples); filter_mac_snps thresholds that expectation."""

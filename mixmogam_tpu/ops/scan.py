@@ -139,13 +139,12 @@ def probe_for_source(rg=None, Gf=None):
 #: what 'auto' and 'fast' resolve to on each platform, as (tier for
 #: integer dosages, tier for fractional ones); a platform not listed runs
 #: the exact tier. An entry is there only where the tier measured faster
-#: than exact on that platform with its drift inside TIER_P_DRIFT. GPU:
-#: a 65,536 x 10,240 resident scan on an H100 80GB HBM3 at 400 W took
-#: 316 ms exact, 49 ms int8x3 (drift 4.6e-6), 30 ms int8x2 (4.8e-4) and
-#: 24 ms bf16 (7.8e-3). The int8 tiers need integer dosages: their digit
-#: planes round genotypes to int8.
+#: than exact on that platform with its drift inside TIER_P_DRIFT, on
+#: dosages of its kind (PERF.md, Findings). The GPU's drifts were read on
+#: binary genomes only, so fractional dosages run exact there. The int8
+#: tiers need integer dosages: their digit planes round genotypes to int8.
 PRECISION_ROUTES = {
-    "gpu": {"auto": ("int8x3", "exact"), "fast": ("int8x2", "bf16")},
+    "gpu": {"auto": ("int8x3", "exact"), "fast": ("int8x2", "exact")},
 }
 _EXACT_ROUTE = {"auto": ("exact", "exact"), "fast": ("exact", "exact")}
 
@@ -176,20 +175,20 @@ def resolve_precision(precision: str, G=None, backend=None):
 
 
 #: ABSOLUTE p-value drift bound per tier (|p_tier - p_exact|): twice the
-#: max drift measured over a 65,536 x 10,240 binary genome on an H100
-#: 80GB HBM3 at 400 W (chip_smoke.py phase B), rounded up to one
-#: significant digit. 'high' is TF32 there. select_rescore_idx widens the
-#: Bonferroni cut by a safety multiple of this, making the rescore pass
-#: THRESHOLD-COMPLETE.
+#: largest max drift measured over three 65,536 x 10,240 binary genomes
+#: (chip_smoke.py phase B, seeds 0-2) on an H100 80GB HBM3 at 700 W,
+#: rounded up to one significant digit (readings per seed: PERF.md).
+#: 'high' is TF32 there. select_rescore_idx widens the Bonferroni cut by
+#: a safety multiple of this, making the rescore pass THRESHOLD-COMPLETE.
 TIER_P_DRIFT = {
     "exact": 0.0,
-    "high": 2e-3,                           # measured 9.07e-4
+    "high": 2e-3,                           # largest reading 9.24e-4
     "bf16": 2e-2,                           # 7.82e-3
     "bf16x2": 3e-5, "bf16x2c": 3e-5,        # 1.12e-5
-    "bf16x3": 8e-6, "bf16x3c": 8e-6,        # 3.51e-6
+    "bf16x3": 9e-6, "bf16x3c": 9e-6,        # 4.07e-6
     "int8x2": 1e-3,                         # 4.78e-4
     "int8x3": 1e-5,                         # 4.58e-6
-    "int8x4": 8e-6,                         # 3.55e-6
+    "int8x4": 9e-6,                         # 4.30e-6
 }
 
 

@@ -543,8 +543,9 @@ class TestEmmaStreamed:
 
 
 class TestPackedTransport:
-    """2-bit device-side unpack (ops.pack2): 4x less host->device traffic
-    for streamed int8 tiles; bit-exact vs raw int8 transfers."""
+    """2-bit device-side unpack (ops.pack2) for the resident genome, and
+    the raw int8 transfers of the streamed paths at chunk and tile sizes
+    that leave a padded remainder."""
 
     def test_unpack_device_roundtrip(self):
         from mixmogam_tpu import native
@@ -559,31 +560,36 @@ class TestPackedTransport:
                                             G.shape[1]))
         np.testing.assert_array_equal(out, G)
 
-    def test_kinship_packed_matches_raw(self, small_dataset):
+    def test_kinship_streamed_int8_matches_oracle(self, small_dataset):
+        from mixmogam_tpu import oracle
         from mixmogam_tpu.ops.kinship import kinship
 
-        G = small_dataset["G_int"]
-        a = kinship(G, method="ibs", chunk=128, pack_transfer=False)
-        b = kinship(G, method="ibs", chunk=128, pack_transfer=True)
-        np.testing.assert_array_equal(a, b)  # integer-exact either way
+        G = small_dataset["G_int"]           # 500 SNPs: 3 chunks + pad
+        a = kinship(G, method="ibs", chunk=128)
+        b = oracle.ibs_kinship(G.astype(np.float64), ploidy=1)
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
 
-    def test_kinship_diploid_packed(self):
+    def test_kinship_diploid_streamed_matches_oracle(self):
+        from mixmogam_tpu import oracle
         from mixmogam_tpu.data.simulate import simulate_genotypes
         from mixmogam_tpu.ops.kinship import kinship
 
         G, _, _ = simulate_genotypes(30, 100, ploidy=2, seed=5)
-        a = kinship(G, method="ibs", chunk=33, pack_transfer=False)
-        b = kinship(G, method="ibs", chunk=33, pack_transfer=True)
-        np.testing.assert_array_equal(a, b)
+        a = kinship(G, method="ibs", chunk=33)     # pad rows use -1
+        b = oracle.ibs_kinship(G.astype(np.float64), ploidy=2)
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
 
-    def test_streamed_scan_packed(self, small_dataset, kinship_small):
+    def test_streamed_int8_scan_matches_incore(self, small_dataset,
+                                               kinship_small):
+        from mixmogam_tpu.models import emmax
         from mixmogam_tpu.models.streaming import emmax_streamed
 
         G_int = small_dataset["G_int"]
         y, K = small_dataset["y"], kinship_small
-        a = emmax_streamed(G_int, y, K=K, tile=64, pack_transfer=False)
-        b = emmax_streamed(G_int, y, K=K, tile=64, pack_transfer=True)
-        np.testing.assert_allclose(a["ps"], b["ps"], atol=0)
+        st = emmax_streamed(G_int, y, K=K, tile=64)
+        ref = emmax(G_int, y, K=K, stream=False)
+        np.testing.assert_allclose(st["ps"], ref["ps"], rtol=1e-9,
+                                   atol=1e-12)
 
 
 class TestRunGwasMultiBatched:
